@@ -1,7 +1,7 @@
 """Generate the committed GLB asset (assets/colonnade.glb).
 
 The reference loads its scene from disk at startup (main.rs:337-351);
-renderer_tpu's external-asset path is the from-scratch GLB parser/writer
+renderer_jax's external-asset path is the from-scratch GLB parser/writer
 (scene/gltf.py). This writes the colonnade spec once; the file is committed
 and tests/test_asset_glb.py asserts it renders identically to the
 procedural twin (models/scenes.colonnade_scene).
@@ -13,8 +13,8 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from renderer_tpu.models.scenes import colonnade_spec
-from renderer_tpu.scene.gltf import write_glb
+from renderer_jax.models.scenes import colonnade_spec
+from renderer_jax.scene.gltf import write_glb
 
 
 def main():

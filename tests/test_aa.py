@@ -1,6 +1,6 @@
 """Edge-aware AA tier (ops/aa.py): the production anti-aliasing pass.
 
-Reference bar: always-on 4xMSAA + resolve (renderer.rs:1047-1087). The TPU
+Reference bar: always-on 4xMSAA + resolve (renderer.rs:1047-1087). The
 production tier must (a) leave interior/texture pixels untouched (ID gate),
 (b) move geometry-edge pixels toward their across-edge neighbor, and
 (c) land measurably closer to the SSAA ground truth than the aliased frame.
@@ -11,11 +11,11 @@ import dataclasses
 import numpy as np
 import jax.numpy as jnp
 
-from renderer_tpu import mathx
-from renderer_tpu.mathx.camera import Camera
-from renderer_tpu.passes.pipeline import PipelineConfig
-from renderer_tpu.runtime import Renderer
-from renderer_tpu.scene import SceneBuilder, SceneLimits, primitives
+from renderer_jax import mathx
+from renderer_jax.mathx.camera import Camera
+from renderer_jax.passes.pipeline import PipelineConfig
+from renderer_jax.runtime import Renderer
+from renderer_jax.scene import SceneBuilder, SceneLimits, primitives
 
 
 def slanted_scene():

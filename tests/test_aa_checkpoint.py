@@ -3,11 +3,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from renderer_tpu.mathx.camera import Camera
-from renderer_tpu.passes.pipeline import PipelineConfig
-from renderer_tpu.runtime import Renderer
-from renderer_tpu.runtime.checkpoint import load_renderer, save_renderer
-from renderer_tpu.scene import SceneBuilder, SceneLimits, primitives
+from renderer_jax.mathx.camera import Camera
+from renderer_jax.passes.pipeline import PipelineConfig
+from renderer_jax.runtime import Renderer
+from renderer_jax.runtime.checkpoint import load_renderer, save_renderer
+from renderer_jax.scene import SceneBuilder, SceneLimits, primitives
 
 
 def scene():
@@ -64,7 +64,7 @@ def test_checkpoint_roundtrip(tmp_path):
 
 
 def test_hlo_dump(tmp_path):
-    from renderer_tpu.utils.profiling import dump_hlo
+    from renderer_jax.utils.profiling import dump_hlo
 
     path = str(tmp_path / "prog.hlo")
     text = dump_hlo(lambda x: x * 2 + 1, jnp.ones((8, 8)), path=path, optimized=False)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from renderer_tpu.runtime.allocator import Arena
+from renderer_jax.runtime.allocator import Arena
 
 
 def test_alloc_free_stats():

@@ -11,12 +11,12 @@ import os
 import numpy as np
 import jax.numpy as jnp
 
-from renderer_tpu.mathx.camera import Camera
-from renderer_tpu.models.scenes import _colonnade_lights, colonnade_scene
-from renderer_tpu.passes.pipeline import PipelineConfig
-from renderer_tpu.runtime import Renderer
-from renderer_tpu.scene import SceneBuilder, SceneLimits
-from renderer_tpu.scene.gltf import load_gltf
+from renderer_jax.mathx.camera import Camera
+from renderer_jax.models.scenes import _colonnade_lights, colonnade_scene
+from renderer_jax.passes.pipeline import PipelineConfig
+from renderer_jax.runtime import Renderer
+from renderer_jax.scene import SceneBuilder, SceneLimits
+from renderer_jax.scene.gltf import load_gltf
 
 ASSET = os.path.join(os.path.dirname(__file__), "..", "assets", "colonnade.glb")
 
@@ -59,8 +59,8 @@ def test_glb_through_streaming_loader():
     worker) and uploaded under the per-frame budget into a live scene."""
     import time
 
-    from renderer_tpu.models.scenes import colonnade_spec
-    from renderer_tpu.runtime.streaming import SceneStreamer
+    from renderer_jax.models.scenes import colonnade_spec
+    from renderer_jax.runtime.streaming import SceneStreamer
 
     # live base scene with capacity headroom + the colonnade lights
     b = SceneBuilder(SceneLimits())

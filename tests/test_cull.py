@@ -4,9 +4,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from renderer_tpu.ops.cull import compact_soup
-from renderer_tpu.ops.geometry import TriangleSoup
-from renderer_tpu.passes.pipeline import empty_soup
+from renderer_jax.ops.cull import compact_soup
+from renderer_jax.ops.geometry import TriangleSoup
+from renderer_jax.passes.pipeline import empty_soup
 
 
 def make_soup(capacity, valid_mask, rng):
@@ -54,7 +54,7 @@ def test_compact_all_and_none():
 
 def test_compact_under_jit_and_raster_count():
     """Compaction + count-bounded raster give identical images to unbounded."""
-    from renderer_tpu.ops.raster_jax import rasterize
+    from renderer_jax.ops.raster_jax import rasterize
 
     rng = np.random.default_rng(2)
     cap = 256
@@ -78,9 +78,9 @@ def test_two_phase_matches_legacy_expansion():
     same (instance, triangle) set as the legacy expand -> cull -> compact
     path, on randomized scenes."""
     import jax
-    from renderer_tpu.mathx.camera import Camera, camera_matrices
-    from renderer_tpu.ops import geometry
-    from renderer_tpu.scene import SceneBuilder, SceneLimits, primitives
+    from renderer_jax.mathx.camera import Camera, camera_matrices
+    from renderer_jax.ops import geometry
+    from renderer_jax.scene import SceneBuilder, SceneLimits, primitives
 
     rng = np.random.default_rng(11)
     for trial in range(3):
@@ -129,9 +129,9 @@ def test_build_draw_stream_matches_legacy():
     """The fused column-math build (wide tri-record gather + fused shade
     records) selects exactly the legacy path's (instance, triangle) set and
     produces matching shade records per pair."""
-    from renderer_tpu.mathx.camera import Camera
-    from renderer_tpu.ops import geometry
-    from renderer_tpu.scene import SceneBuilder, SceneLimits, primitives
+    from renderer_jax.mathx.camera import Camera
+    from renderer_jax.ops import geometry
+    from renderer_jax.scene import SceneBuilder, SceneLimits, primitives
 
     rng = np.random.default_rng(23)
     b = SceneBuilder(SceneLimits.tiny())
@@ -196,9 +196,9 @@ def test_cluster_cone_culling_is_conservative():
     cull would kill anyway: the surviving (instance, tri) set equals the
     legacy path's, on randomized rotated scenes and cameras."""
     import jax
-    from renderer_tpu.mathx.camera import Camera
-    from renderer_tpu.ops import geometry
-    from renderer_tpu.scene import SceneBuilder, SceneLimits, primitives
+    from renderer_jax.mathx.camera import Camera
+    from renderer_jax.ops import geometry
+    from renderer_jax.scene import SceneBuilder, SceneLimits, primitives
 
     rng = np.random.default_rng(42)
     for trial in range(4):

@@ -7,13 +7,13 @@ shaded, 256x256) with a PSNR gate.
 import numpy as np
 import jax.numpy as jnp
 
-from renderer_tpu import mathx
-from renderer_tpu.mathx.camera import Camera, camera_matrices
-from renderer_tpu.ops.raster_ref import rasterize_ref
-from renderer_tpu.ops.raster_spec import NO_TRIANGLE
-from renderer_tpu.passes.forward import render_forward
-from renderer_tpu.scene import SceneBuilder, SceneLimits, primitives
-from renderer_tpu.utils.image import psnr
+from renderer_jax import mathx
+from renderer_jax.mathx.camera import Camera, camera_matrices
+from renderer_jax.ops.raster_ref import rasterize_ref
+from renderer_jax.ops.raster_spec import NO_TRIANGLE
+from renderer_jax.passes.forward import render_forward
+from renderer_jax.scene import SceneBuilder, SceneLimits, primitives
+from renderer_jax.utils.image import psnr
 
 
 def build_test_scene():
@@ -158,7 +158,7 @@ def test_instance_culling_reduces_work():
     b.add_instance(box, m, translation=(0.0, 0.0, 0.0))
     b.add_instance(box, m, translation=(0.0, 0.0, 100.0))  # behind camera
     scene = b.build()
-    from renderer_tpu.ops import geometry
+    from renderer_jax.ops import geometry
 
     model = geometry.instance_matrices(scene)
     vp, clip_mats = geometry.camera_clip_matrices(camera(), model)

@@ -7,9 +7,9 @@ These are the test-suite analogue of the reference's compile-time validators
 import numpy as np
 import pytest
 
-from renderer_tpu.graph import FrameGraph, GraphError
-from renderer_tpu.graph.core import PlanCache
-from renderer_tpu.graph.dot import graph_to_dot, plan_to_dot
+from renderer_jax.graph import FrameGraph, GraphError
+from renderer_jax.graph.core import PlanCache
+from renderer_jax.graph.dot import graph_to_dot, plan_to_dot
 
 
 def linear_graph():

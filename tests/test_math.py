@@ -1,11 +1,11 @@
-"""Unit tests for renderer_tpu.mathx vs numpy references."""
+"""Unit tests for renderer_jax.mathx vs numpy references."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from renderer_tpu import mathx
-from renderer_tpu.mathx.camera import Camera, camera_matrices, perspective
+from renderer_jax import mathx
+from renderer_jax.mathx.camera import Camera, camera_matrices, perspective
 
 
 def np_quat_to_mat3(q):

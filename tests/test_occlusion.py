@@ -3,11 +3,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from renderer_tpu.mathx.camera import Camera
-from renderer_tpu.ops.occlusion import build_depth_pyramid
-from renderer_tpu.passes.pipeline import PipelineConfig
-from renderer_tpu.runtime import Renderer
-from renderer_tpu.scene import SceneBuilder, SceneLimits, primitives
+from renderer_jax.mathx.camera import Camera
+from renderer_jax.ops.occlusion import build_depth_pyramid
+from renderer_jax.passes.pipeline import PipelineConfig
+from renderer_jax.runtime import Renderer
+from renderer_jax.scene import SceneBuilder, SceneLimits, primitives
 
 
 def test_depth_pyramid_max_reduction():

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from renderer_tpu.ops.overlay import (
+from renderer_jax.ops.overlay import (
     CELL_H,
     CELL_W,
     Overlay,
@@ -18,7 +18,7 @@ def test_font_atlas_glyph_shapes():
     atlas = build_font_atlas()
     assert atlas.shape[1:] == (CELL_H, CELL_W)
     # 'I' is symmetric; 'A' has a solid crossbar row; '.' only bottom rows
-    from renderer_tpu.ops.overlay import _CHAR_INDEX
+    from renderer_jax.ops.overlay import _CHAR_INDEX
 
     a = atlas[_CHAR_INDEX["A"]]
     assert a[3, :5].sum() == 5  # crossbar
@@ -59,11 +59,11 @@ def test_empty_overlay_is_identity():
 def test_hud_switch_in_pipeline():
     """hud switch composites the overlay through the frame graph; off keeps
     the image unchanged (present pass identity)."""
-    from renderer_tpu.mathx.camera import Camera
-    from renderer_tpu.models import box_scene
-    from renderer_tpu.passes.pipeline import PipelineConfig
-    from renderer_tpu.runtime import Renderer
-    from renderer_tpu.scene import SceneLimits
+    from renderer_jax.mathx.camera import Camera
+    from renderer_jax.models import box_scene
+    from renderer_jax.passes.pipeline import PipelineConfig
+    from renderer_jax.runtime import Renderer
+    from renderer_jax.scene import SceneLimits
 
     scene = box_scene(SceneLimits.tiny())
     cfg = PipelineConfig(width=64, height=64, tri_capacity=256)

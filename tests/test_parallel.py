@@ -3,24 +3,23 @@
 The multi-chip path compiles THE SAME frame graph under shard_map
 (PipelineConfig.spmd_devices + Renderer(spmd_mesh=...)); these tests assert
 ulp-level equality with the single-device plan across runtime switches —
-shadows, occlusion culling, and SSAA included (the round-1 hand-rolled SPMD
-pipeline supported none of these)."""
+shadows, occlusion culling, and SSAA included."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-from renderer_tpu.mathx.camera import Camera
-from renderer_tpu.parallel import make_mesh, render_frame_spmd
-from renderer_tpu.passes.pipeline import PipelineConfig
-from renderer_tpu.runtime import Renderer
-from renderer_tpu.scene import SceneLimits
+from renderer_jax.mathx.camera import Camera
+from renderer_jax.parallel import make_mesh, render_frame_spmd
+from renderer_jax.passes.pipeline import PipelineConfig
+from renderer_jax.runtime import Renderer
+from renderer_jax.scene import SceneLimits
 
-WIDTH, HEIGHT = 128, 256  # pallas shard rows: height % (8 * 32) == 0
+WIDTH, HEIGHT = 128, 256  # pallas shard rows: height % (8 * TILE_H) == 0
 
 
 def small_scene():
-    from renderer_tpu.scene import SceneBuilder, primitives
+    from renderer_jax.scene import SceneBuilder, primitives
 
     b = SceneBuilder(SceneLimits.tiny(), atlas_size=16)
     plane = b.add_mesh(primitives.plane(size=16.0))
@@ -46,7 +45,7 @@ def camera():
 def _render(scene, spmd, mesh, ssaa=1, **switches):
     cfg = PipelineConfig(
         width=WIDTH, height=HEIGHT // ssaa, tri_capacity=8192,
-        use_pallas=True, pallas_interpret=True, shading="pbr", ssaa=ssaa,
+        use_pallas=True, shading="pbr", ssaa=ssaa,
         shadow_slots=2, shadow_size=64,
         spmd_devices=8 if spmd else 1,
     )
@@ -113,7 +112,7 @@ def test_render_frame_spmd_driver():
 def test_spmd_rt_and_hud_switches():
     """rt (grid-accelerated shadows) and hud (overlay) also run under SPMD
     through the same plan, matching single-device."""
-    from renderer_tpu.ops.overlay import hud_overlay
+    from renderer_jax.ops.overlay import hud_overlay
 
     scene = small_scene()
     mesh = make_mesh()
@@ -128,7 +127,7 @@ def test_spmd_rt_and_hud_switches():
     ov = hud_overlay("SPMD OK", WIDTH)
     cfg = PipelineConfig(
         width=WIDTH, height=HEIGHT, tri_capacity=8192,
-        use_pallas=True, pallas_interpret=True, shading="pbr",
+        use_pallas=True, shading="pbr",
         spmd_devices=8,
     )
     r = Renderer(scene, cfg, outputs=("image",), spmd_mesh=mesh)
@@ -154,7 +153,7 @@ def test_spmd_checkerboard_shade_tier():
     def render(spmd):
         cfg = PipelineConfig(
             width=WIDTH, height=HEIGHT, tri_capacity=8192,
-            use_pallas=True, pallas_interpret=True, shading="pbr",
+            use_pallas=True, shading="pbr",
             shade_rate="checkerboard",
             spmd_devices=8 if spmd else 1,
         )
@@ -179,7 +178,7 @@ def test_spmd_quarter_shade_tier():
     def render(spmd):
         cfg = PipelineConfig(
             width=WIDTH, height=HEIGHT, tri_capacity=8192,
-            use_pallas=True, pallas_interpret=True, shading="pbr",
+            use_pallas=True, shading="pbr",
             shade_rate="quarter",
             spmd_devices=8 if spmd else 1,
         )

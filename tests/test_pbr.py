@@ -3,11 +3,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from renderer_tpu import mathx
-from renderer_tpu.mathx.camera import Camera
-from renderer_tpu.passes.pipeline import PipelineConfig
-from renderer_tpu.runtime import Renderer
-from renderer_tpu.scene import SceneBuilder, SceneLimits, primitives
+from renderer_jax import mathx
+from renderer_jax.mathx.camera import Camera
+from renderer_jax.passes.pipeline import PipelineConfig
+from renderer_jax.runtime import Renderer
+from renderer_jax.scene import SceneBuilder, SceneLimits, primitives
 
 
 def flat_plane_scene(
@@ -104,11 +104,11 @@ def test_checkerboard_shade_tier():
     must track it closely (PSNR gate)."""
     import jax.numpy as jnp
 
-    from renderer_tpu.mathx.camera import Camera
-    from renderer_tpu.models import textured_scene
-    from renderer_tpu.passes.pipeline import PipelineConfig
-    from renderer_tpu.runtime import Renderer
-    from renderer_tpu.scene import SceneLimits
+    from renderer_jax.mathx.camera import Camera
+    from renderer_jax.models import textured_scene
+    from renderer_jax.passes.pipeline import PipelineConfig
+    from renderer_jax.runtime import Renderer
+    from renderer_jax.scene import SceneLimits
 
     scene = textured_scene(SceneLimits.tiny(), atlas_size=32)
     cam = Camera.create(
@@ -118,7 +118,7 @@ def test_checkerboard_shade_tier():
     def render(rate):
         cfg = PipelineConfig(
             width=128, height=64, tri_capacity=4096,
-            use_pallas=True, pallas_interpret=True, shading="pbr",
+            use_pallas=True, shading="pbr",
             shade_rate=rate,
         )
         r = Renderer(scene, cfg, outputs=("image",))
@@ -134,7 +134,7 @@ def test_checkerboard_shade_tier():
 
     # 128x64 is edge/texel-dominated (triangles are a few pixels wide), the
     # worst case for neighbor reconstruction — the 1080p bench frame
-    # measures far higher (see PERF.md); _checkerboard_expand is exact for
+    # gates at 40 dB (bench.py); _checkerboard_expand is exact for
     # locally-linear fields (interiors) by construction
     mse = np.mean((cb - full) ** 2)
     psnr = 10 * np.log10(1.0 / max(mse, 1e-12))
@@ -149,11 +149,11 @@ def test_checkerboard_edge_fix_is_exact():
     TOWARD the full-rate one."""
     import jax.numpy as jnp
 
-    from renderer_tpu.mathx.camera import Camera
-    from renderer_tpu.models import textured_scene
-    from renderer_tpu.passes.pipeline import PipelineConfig
-    from renderer_tpu.runtime import Renderer
-    from renderer_tpu.scene import SceneLimits
+    from renderer_jax.mathx.camera import Camera
+    from renderer_jax.models import textured_scene
+    from renderer_jax.passes.pipeline import PipelineConfig
+    from renderer_jax.runtime import Renderer
+    from renderer_jax.scene import SceneLimits
 
     scene = textured_scene(SceneLimits.tiny(), atlas_size=32)
     cam = Camera.create(
@@ -163,7 +163,7 @@ def test_checkerboard_edge_fix_is_exact():
     def render(rate, fix):
         cfg = PipelineConfig(
             width=128, height=64, tri_capacity=4096,
-            use_pallas=True, pallas_interpret=True, shading="pbr",
+            use_pallas=True, shading="pbr",
             shade_rate=rate, shade_fix=fix,
         )
         r = Renderer(scene, cfg, outputs=("image",))
@@ -202,11 +202,11 @@ def test_quarter_shade_tier():
     edge-heavy worst-case scene)."""
     import jax.numpy as jnp
 
-    from renderer_tpu.mathx.camera import Camera
-    from renderer_tpu.models import textured_scene
-    from renderer_tpu.passes.pipeline import PipelineConfig
-    from renderer_tpu.runtime import Renderer
-    from renderer_tpu.scene import SceneLimits
+    from renderer_jax.mathx.camera import Camera
+    from renderer_jax.models import textured_scene
+    from renderer_jax.passes.pipeline import PipelineConfig
+    from renderer_jax.runtime import Renderer
+    from renderer_jax.scene import SceneLimits
 
     scene = textured_scene(SceneLimits.tiny(), atlas_size=32)
     cam = Camera.create(
@@ -216,7 +216,7 @@ def test_quarter_shade_tier():
     def render(rate, fix=False):
         cfg = PipelineConfig(
             width=128, height=64, tri_capacity=4096,
-            use_pallas=True, pallas_interpret=True, shading="pbr",
+            use_pallas=True, shading="pbr",
             shade_rate=rate, shade_fix=fix,
         )
         r = Renderer(scene, cfg, outputs=("image",))
@@ -231,8 +231,7 @@ def test_quarter_shade_tier():
     np.testing.assert_allclose(q[shaded], full[shaded], atol=1e-6)
 
     # quarter rate reconstructs 3/4 of an edge-dominated tiny frame: the
-    # floor is lower than checkerboard's (PERF.md r5 measures the 1080p
-    # bench far higher); this guards against wiring bugs, not quality
+    # floor is lower than checkerboard's; this guards against wiring bugs, not quality
     mse = np.mean((q - full) ** 2)
     psnr = 10 * np.log10(1.0 / max(mse, 1e-12))
     assert psnr > 24.0, psnr

@@ -3,12 +3,12 @@
 import numpy as np
 import jax.numpy as jnp
 
-from renderer_tpu import mathx
-from renderer_tpu.mathx.camera import Camera
-from renderer_tpu.ops.raster_spec import NO_TRIANGLE
-from renderer_tpu.passes.pipeline import PipelineConfig, build_forward_graph
-from renderer_tpu.runtime import Renderer
-from renderer_tpu.scene import SceneBuilder, SceneLimits, primitives
+from renderer_jax import mathx
+from renderer_jax.mathx.camera import Camera
+from renderer_jax.ops.raster_spec import NO_TRIANGLE
+from renderer_jax.passes.pipeline import PipelineConfig, build_forward_graph
+from renderer_jax.runtime import Renderer
+from renderer_jax.scene import SceneBuilder, SceneLimits, primitives
 
 
 def small_scene():
@@ -99,7 +99,7 @@ def test_debug_aabbs_switch():
 
 
 def test_graph_validates_and_dumps():
-    from renderer_tpu.graph.dot import graph_to_dot, plan_to_dot
+    from renderer_jax.graph.dot import graph_to_dot, plan_to_dot
 
     g = build_forward_graph(CFG)
     g.validate()
@@ -121,9 +121,9 @@ def test_pallas_pbr_matches_xla_pbr_image():
     bug once produced an all-dark image that no numeric unit test caught."""
     import jax.numpy as jnp
 
-    from renderer_tpu.mathx.camera import Camera
-    from renderer_tpu.models import textured_scene
-    from renderer_tpu.scene import SceneLimits
+    from renderer_jax.mathx.camera import Camera
+    from renderer_jax.models import textured_scene
+    from renderer_jax.scene import SceneLimits
 
     scene = textured_scene(SceneLimits.tiny(), atlas_size=32)
     cam = Camera.create(position=jnp.array([0.0, 1.2, 4.0]), fov_y=0.9, near=0.1, far=60.0)
@@ -131,7 +131,7 @@ def test_pallas_pbr_matches_xla_pbr_image():
     def render(use_pallas):
         cfg = PipelineConfig(
             width=128, height=64, tri_capacity=4096,
-            use_pallas=use_pallas, pallas_interpret=use_pallas, shading="pbr",
+            use_pallas=use_pallas, shading="pbr",
         )
         r = Renderer(scene, cfg, outputs=("image",))
         return np.asarray(r.render(cam)["image"])
@@ -152,9 +152,9 @@ def test_cluster_cull_pipeline_image_parity():
     cluster stage may only remove triangles the per-triangle cull kills)."""
     import jax.numpy as jnp
 
-    from renderer_tpu.mathx.camera import Camera
-    from renderer_tpu.models import textured_scene
-    from renderer_tpu.scene import SceneLimits
+    from renderer_jax.mathx.camera import Camera
+    from renderer_jax.models import textured_scene
+    from renderer_jax.scene import SceneLimits
 
     scene = textured_scene(SceneLimits.tiny(), atlas_size=16)
     cam = Camera.create(position=jnp.array([0.0, 1.2, 4.0]), fov_y=0.9, near=0.1, far=60.0)
@@ -162,7 +162,7 @@ def test_cluster_cull_pipeline_image_parity():
     def render(cluster_cull):
         cfg = PipelineConfig(
             width=128, height=64, tri_capacity=4096,
-            use_pallas=True, pallas_interpret=True, shading="pbr",
+            use_pallas=True, shading="pbr",
             cluster_cull=cluster_cull,
         )
         r = Renderer(scene, cfg, outputs=("image", "vis"))

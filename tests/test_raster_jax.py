@@ -3,13 +3,13 @@
 import numpy as np
 import jax.numpy as jnp
 
-from renderer_tpu import mathx
-from renderer_tpu.mathx.camera import Camera, camera_matrices
-from renderer_tpu.ops import geometry
-from renderer_tpu.ops.raster_jax import rasterize, interpolate
-from renderer_tpu.ops.raster_ref import rasterize_ref
-from renderer_tpu.ops.raster_spec import NO_TRIANGLE
-from renderer_tpu.scene import SceneBuilder, SceneLimits, primitives
+from renderer_jax import mathx
+from renderer_jax.mathx.camera import Camera, camera_matrices
+from renderer_jax.ops import geometry
+from renderer_jax.ops.raster_jax import rasterize, interpolate
+from renderer_jax.ops.raster_ref import rasterize_ref
+from renderer_jax.ops.raster_spec import NO_TRIANGLE
+from renderer_jax.scene import SceneBuilder, SceneLimits, primitives
 
 
 def soup_from_mesh(mesh, viewproj):

@@ -1,16 +1,16 @@
 """Pallas tile rasterizer goldens vs the plain-JAX rasterizer (which is
-itself golden-tested against the numpy reference). Runs in interpret mode on
-CPU; real-TPU runs are exercised by the demo/bench."""
+itself golden-tested against the numpy reference). On the CPU the kernel
+runs in the Pallas interpreter; tests/test_gpu.py runs it compiled."""
 
 import numpy as np
 import jax.numpy as jnp
 
-from renderer_tpu import mathx
-from renderer_tpu.mathx.camera import Camera, camera_matrices
-from renderer_tpu.ops.raster_jax import rasterize
-from renderer_tpu.ops.raster_pallas import rasterize_pallas
-from renderer_tpu.ops.raster_spec import NO_TRIANGLE
-from renderer_tpu.scene import primitives
+from renderer_jax import mathx
+from renderer_jax.mathx.camera import Camera, camera_matrices
+from renderer_jax.ops.raster_jax import rasterize
+from renderer_jax.ops.raster_pallas import rasterize_pallas
+from renderer_jax.ops.raster_spec import NO_TRIANGLE
+from renderer_jax.scene import primitives
 
 
 def soup_from_meshes(meshes_and_mats, pad_to=256):
@@ -29,7 +29,7 @@ def soup_from_meshes(meshes_and_mats, pad_to=256):
 def compare(mesh_list, cam, width=128, height=64, cull=True):
     _, _, vp = camera_matrices(cam)
     clip, valid = soup_from_meshes([(m, vp) for m in mesh_list])
-    got = rasterize_pallas(clip, valid, width, height, cull_backface=cull, interpret=True)
+    got = rasterize_pallas(clip, valid, width, height, cull_backface=cull)
     want = rasterize(clip, valid, width, height, cull_backface=cull)
     id_mismatch = (np.asarray(got.tri_id) != np.asarray(want.tri_id)).mean()
     assert id_mismatch == 0.0, f"tri_id mismatch {id_mismatch:.4%}"
@@ -67,7 +67,7 @@ def test_near_crossing():
 def test_empty():
     clip = jnp.zeros((256, 3, 4), jnp.float32)
     valid = jnp.zeros((256,), bool)
-    out = rasterize_pallas(clip, valid, 128, 32, interpret=True)
+    out = rasterize_pallas(clip, valid, 128, 32)
     assert np.all(np.asarray(out.tri_id) == NO_TRIANGLE)
     assert np.all(np.asarray(out.depth) == 1.0)
 
@@ -93,7 +93,7 @@ def test_multi_block_many_triangles():
     pad = (-n) % 256
     clip = np.concatenate([clip, np.zeros((pad, 3, 4), np.float32)])
     valid = np.concatenate([np.ones(n, bool), np.zeros(pad, bool)])
-    got = rasterize_pallas(jnp.asarray(clip), jnp.asarray(valid), 128, 64, interpret=True)
+    got = rasterize_pallas(jnp.asarray(clip), jnp.asarray(valid), 128, 64)
     want = rasterize(jnp.asarray(clip), jnp.asarray(valid), 128, 64)
     assert (np.asarray(got.tri_id) == np.asarray(want.tri_id)).all()
     np.testing.assert_allclose(np.asarray(got.depth), np.asarray(want.depth), atol=1e-6)
@@ -107,9 +107,9 @@ def test_y0_sharded_rendering():
     cam = Camera.create(position=jnp.array([0.0, 0.3, 2.2]), near=0.1, far=20.0, aspect=2.0)
     _, _, vp = camera_matrices(cam)
     clip, valid = soup_from_meshes([(primitives.uv_sphere(rings=10, sectors=14), vp)])
-    full = rasterize_pallas(clip, valid, 128, 64, interpret=True)
-    top = rasterize_pallas(clip, valid, 128, 32, interpret=True, y0=0, full_height=64)
-    bot = rasterize_pallas(clip, valid, 128, 32, interpret=True, y0=32, full_height=64)
+    full = rasterize_pallas(clip, valid, 128, 64)
+    top = rasterize_pallas(clip, valid, 128, 32, y0=0, full_height=64)
+    bot = rasterize_pallas(clip, valid, 128, 32, y0=32, full_height=64)
     np.testing.assert_array_equal(
         np.asarray(full.tri_id),
         np.concatenate([np.asarray(top.tri_id), np.asarray(bot.tri_id)]),
@@ -158,7 +158,6 @@ def test_tile_boundary_aligned_triangles():
     valid = np.concatenate([np.ones(n, bool), np.zeros(pad, bool)])
     got = rasterize_pallas(
         jnp.asarray(clip), jnp.asarray(valid), w, h, cull_backface=False,
-        interpret=True,
     )
     want = rasterize(
         jnp.asarray(clip), jnp.asarray(valid), w, h, cull_backface=False
@@ -177,7 +176,7 @@ def test_bin_overflow_walk_all_path():
     walk-every-block fallback (count = -1) must still rasterize exactly —
     with the per-block triangle bitmasks, the overflow path indexes the
     dense mask table by raw block id, which this pins down."""
-    import renderer_tpu.ops.raster_pallas as rp
+    import renderer_jax.ops.raster_pallas as rp
 
     w, h = 128, 64
     n = 16384  # 256 blocks of 64, twice the patched 128-block cap
@@ -195,11 +194,11 @@ def test_bin_overflow_walk_all_path():
     valid = jnp.ones((n,), bool)
     old = rp.MAX_BLOCKS_PER_TILE
     try:
-        rp.MAX_BLOCKS_PER_TILE = 128  # the 128-entry floor (SMEM row quantum)
+        rp.MAX_BLOCKS_PER_TILE = 128  # half the 256 blocks
         over = int(rp.bin_overflow_tiles(clip, valid, w, h, cull_backface=False))
         assert over >= 1, "setup failed to overflow any tile"
         got = rp.rasterize_pallas(
-            clip, valid, w, h, cull_backface=False, interpret=True
+            clip, valid, w, h, cull_backface=False
         )
     finally:
         rp.MAX_BLOCKS_PER_TILE = old
@@ -237,7 +236,7 @@ def test_random_soups_property():
         valid = jnp.asarray(rng.random(n) < 0.9)
         for cull in (True, False):
             got = rasterize_pallas(
-                clip, valid, w, h, cull_backface=cull, interpret=True,
+                clip, valid, w, h, cull_backface=cull,
                 with_bary=False,
             )
             want = rasterize(clip, valid, w, h, cull_backface=cull)

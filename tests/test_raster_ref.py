@@ -4,11 +4,11 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from renderer_tpu import mathx
-from renderer_tpu.mathx.camera import Camera, camera_matrices
-from renderer_tpu.ops.raster_ref import rasterize_ref, interpolate
-from renderer_tpu.ops.raster_spec import NO_TRIANGLE
-from renderer_tpu.scene import primitives
+from renderer_jax import mathx
+from renderer_jax.mathx.camera import Camera, camera_matrices
+from renderer_jax.ops.raster_ref import rasterize_ref, interpolate
+from renderer_jax.ops.raster_spec import NO_TRIANGLE
+from renderer_jax.scene import primitives
 
 
 def ndc_tri(v0, v1, v2, z=0.5):

@@ -4,13 +4,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from renderer_tpu.mathx.camera import Camera
-from renderer_tpu.passes.pipeline import PipelineConfig
-from renderer_tpu.runtime import Renderer
-from renderer_tpu.runtime.hud import format_hud, validate_frame
-from renderer_tpu.runtime.streaming import SceneStreamer
-from renderer_tpu.scene import SceneBuilder, SceneLimits, primitives
-from renderer_tpu.utils.profiling import FrameStats
+from renderer_jax.mathx.camera import Camera
+from renderer_jax.passes.pipeline import PipelineConfig
+from renderer_jax.runtime import Renderer
+from renderer_jax.runtime.hud import format_hud, validate_frame
+from renderer_jax.runtime.streaming import SceneStreamer
+from renderer_jax.scene import SceneBuilder, SceneLimits, primitives
+from renderer_jax.utils.profiling import FrameStats
 
 
 def base_scene():
@@ -63,8 +63,8 @@ def test_streaming_budget_and_render():
 def test_streaming_large_mesh_chunked():
     """Meshes beyond CHUNK_VERTS stream by looping the fixed-shape donated
     chunk program (ref: scene_loader.rs streams arbitrary glTFs)."""
-    from renderer_tpu.runtime.allocator import Arena
-    from renderer_tpu.runtime.streaming import CHUNK_VERTS
+    from renderer_jax.runtime.allocator import Arena
+    from renderer_jax.runtime.streaming import CHUNK_VERTS
 
     b = SceneBuilder(SceneLimits.tiny()._replace(max_vertices=16384, max_triangles=16384))
     box = b.add_mesh(primitives.box())
@@ -128,7 +128,7 @@ def test_streaming_capacity_guard():
 
 
 def test_hud_contents():
-    from renderer_tpu.runtime.allocator import Arena
+    from renderer_jax.runtime.allocator import Arena
 
     scene = base_scene()
     r = Renderer(scene, PipelineConfig(width=64, height=64, tri_capacity=256))
@@ -172,7 +172,7 @@ def test_frame_stats():
 
 def test_projectile_churn():
     """Spawn/despawn churn (the reference's projectiles + Deleting path)."""
-    from renderer_tpu.runtime.gameplay import ProjectileSystem
+    from renderer_jax.runtime.gameplay import ProjectileSystem
 
     scene = base_scene()
     ps = ProjectileSystem(scene, mesh_id=0, material_id=0, capacity=8)
@@ -197,7 +197,7 @@ def test_projectile_churn():
 
 def test_camera_controller():
     """Fly/walk camera math (parity with ecs/camera_controller.rs)."""
-    from renderer_tpu.runtime.camera_controller import CameraState, InputFrame, step, to_camera
+    from renderer_jax.runtime.camera_controller import CameraState, InputFrame, step, to_camera
 
     s = CameraState(position=np.zeros(3, np.float32))
     # looking -Z by default: W moves toward -Z
@@ -224,7 +224,7 @@ def test_camera_controller():
 
 
 def test_camera_controller_drives_renderer():
-    from renderer_tpu.runtime.camera_controller import CameraState, InputFrame, step, to_camera
+    from renderer_jax.runtime.camera_controller import CameraState, InputFrame, step, to_camera
 
     scene = base_scene()
     r = Renderer(scene, PipelineConfig(width=64, height=64, tri_capacity=256))
@@ -241,7 +241,7 @@ def test_texture_streaming():
     """Textures stream into preallocated atlas slots and take effect."""
     import time
 
-    from renderer_tpu.scene import SceneBuilder, SceneLimits, primitives
+    from renderer_jax.scene import SceneBuilder, SceneLimits, primitives
 
     b = SceneBuilder(SceneLimits.tiny(), atlas_size=8)
     pl = b.add_mesh(primitives.plane(size=8.0))
@@ -253,8 +253,8 @@ def test_texture_streaming():
 
     import jax.numpy as jnp
 
-    from renderer_tpu import mathx
-    from renderer_tpu.mathx.camera import Camera
+    from renderer_jax import mathx
+    from renderer_jax.mathx.camera import Camera
 
     cam = Camera.create(
         position=jnp.array([0.0, 2.0, 0.0]),
@@ -294,8 +294,8 @@ def test_kernel_live_reload(tmp_path):
 
     import jax.numpy as jnp
 
-    from renderer_tpu.mathx.camera import Camera
-    from renderer_tpu.runtime.reload import KernelReloader
+    from renderer_jax.mathx.camera import Camera
+    from renderer_jax.runtime.reload import KernelReloader
 
     mod_path = tmp_path / "hot_shade.py"
     mod_path.write_text("TINT = 0.0\n")
@@ -303,7 +303,7 @@ def test_kernel_live_reload(tmp_path):
     try:
         import hot_shade  # noqa: F401
 
-        from renderer_tpu.graph import FrameGraph
+        from renderer_jax.graph import FrameGraph
 
         def build_graph():
             import hot_shade as hs
@@ -320,9 +320,9 @@ def test_kernel_live_reload(tmp_path):
 
             return g
 
-        from renderer_tpu.models import box_scene
-        from renderer_tpu.runtime import Renderer
-        from renderer_tpu.scene import SceneLimits
+        from renderer_jax.models import box_scene
+        from renderer_jax.runtime import Renderer
+        from renderer_jax.scene import SceneLimits
 
         scene = box_scene(SceneLimits.tiny())
         r = Renderer(scene, graph=build_graph(), outputs=("image",))
@@ -375,9 +375,9 @@ def test_hud_capacity_overflow_counters():
     (silent capacity clamps otherwise show up only as missing geometry)."""
     import jax.numpy as jnp
 
-    from renderer_tpu.ops import geometry
-    from renderer_tpu.ops.shadow import light_matrices_cube, shadow_caster_truncation
-    from renderer_tpu.scene import SceneBuilder, SceneLimits, primitives
+    from renderer_jax.ops import geometry
+    from renderer_jax.ops.shadow import light_matrices_cube, shadow_caster_truncation
+    from renderer_jax.scene import SceneBuilder, SceneLimits, primitives
 
     b = SceneBuilder(SceneLimits.tiny())
     sph = b.add_mesh(primitives.uv_sphere(rings=8, sectors=12))
@@ -415,8 +415,8 @@ def test_texture_layer_recycling():
     exhaustion raises a clean MemoryError naming the remedy."""
     import time as _t
 
-    from renderer_tpu.runtime.streaming import SceneStreamer
-    from renderer_tpu.scene import SceneBuilder, SceneLimits, primitives
+    from renderer_jax.runtime.streaming import SceneStreamer
+    from renderer_jax.scene import SceneBuilder, SceneLimits, primitives
 
     b = SceneBuilder(SceneLimits.tiny(), atlas_size=8)
     pl = b.add_mesh(primitives.plane())
@@ -437,7 +437,7 @@ def test_texture_layer_recycling():
 
 
 def test_auto_capacity_ladder():
-    """AutoCapacityRenderer (VERDICT r4 item 6): the capacity tier grows
+    """AutoCapacityRenderer: the capacity tier grows
     until the culled count fits with headroom — no operator-set
     tri_capacity — and shrinks (with hysteresis) when the camera sees
     little; persistent state carries across tier switches."""
@@ -445,10 +445,10 @@ def test_auto_capacity_ladder():
 
     import jax.numpy as jnp
 
-    from renderer_tpu.mathx.camera import Camera
-    from renderer_tpu.models import sponza_like_scene
-    from renderer_tpu.passes.pipeline import PipelineConfig
-    from renderer_tpu.runtime import AutoCapacityRenderer
+    from renderer_jax.mathx.camera import Camera
+    from renderer_jax.models import sponza_like_scene
+    from renderer_jax.passes.pipeline import PipelineConfig
+    from renderer_jax.runtime import AutoCapacityRenderer
 
     scene = sponza_like_scene(300, area=20.0)
     cfg = PipelineConfig(width=64, height=64, shading="pbr")

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from renderer_tpu.scene import SceneBuilder, SceneLimits
-from renderer_tpu.scene import primitives
+from renderer_jax.scene import SceneBuilder, SceneLimits
+from renderer_jax.scene import primitives
 
 
 def test_primitives_shapes():
@@ -94,7 +94,7 @@ def test_builder_lods():
 def test_native_lod_simplifier():
     """Grid-clustering LODs: valid indices into the original pool, strictly
     decreasing triangle counts, non-degenerate, and they render."""
-    from renderer_tpu.scene.simplify import build_lod_chain, simplify
+    from renderer_jax.scene.simplify import build_lod_chain, simplify
 
     m = primitives.uv_sphere(rings=20, sectors=32)
     chain = build_lod_chain(m.positions, m.indices)
@@ -121,9 +121,9 @@ def test_native_lod_simplifier():
 def test_builder_auto_lods_render():
     import jax.numpy as jnp
 
-    from renderer_tpu.mathx.camera import Camera
-    from renderer_tpu.passes.pipeline import PipelineConfig
-    from renderer_tpu.runtime import Renderer
+    from renderer_jax.mathx.camera import Camera
+    from renderer_jax.passes.pipeline import PipelineConfig
+    from renderer_jax.runtime import Renderer
 
     b = SceneBuilder(SceneLimits.tiny())
     sph = b.add_mesh(primitives.uv_sphere(rings=12, sectors=16), auto_lods=True)

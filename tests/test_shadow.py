@@ -3,11 +3,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from renderer_tpu import mathx
-from renderer_tpu.mathx.camera import Camera
-from renderer_tpu.passes.pipeline import PipelineConfig
-from renderer_tpu.runtime import Renderer
-from renderer_tpu.scene import SceneBuilder, SceneLimits, primitives
+from renderer_jax import mathx
+from renderer_jax.mathx.camera import Camera
+from renderer_jax.passes.pipeline import PipelineConfig
+from renderer_jax.runtime import Renderer
+from renderer_jax.scene import SceneBuilder, SceneLimits, primitives
 
 
 def shadow_scene():
@@ -88,8 +88,8 @@ def test_offset_light_shadow_visible():
 
 def test_shadow_atlas_contents():
     """The atlas slot actually contains the casters' depth (per-light path)."""
-    from renderer_tpu.ops import geometry
-    from renderer_tpu.ops.shadow import (
+    from renderer_jax.ops import geometry
+    from renderer_jax.ops.shadow import (
         light_matrices_cube,
         render_shadow_atlas_per_light,
     )
@@ -232,7 +232,7 @@ def test_rt_grid_matches_brute_force():
     def run(use_pallas):
         cfg = PipelineConfig(
             width=128, height=64, tri_capacity=512, shading="pbr", rt_scale=1,
-            use_pallas=use_pallas, pallas_interpret=use_pallas,
+            use_pallas=use_pallas,
         )
         r = Renderer(scene, cfg)
         r.set_config(rt=True)
@@ -247,7 +247,7 @@ def test_rt_grid_matches_brute_force():
     assert close.mean() > 0.97, close.mean()
     # and there IS a shadow in the grid image (not all-lit)
     cfg = PipelineConfig(width=128, height=64, tri_capacity=512, shading="pbr",
-                         use_pallas=True, pallas_interpret=True)
+                         use_pallas=True)
     r = Renderer(scene, cfg)
     lit = np.asarray(r.render(top_down_camera())["image"])
     assert (lit - img_grid).max() > 0.05
@@ -272,7 +272,7 @@ def test_rt_grid_off_camera_caster():
         fov_y=0.5, near=0.1, far=50.0,
     )
     cfg = PipelineConfig(width=128, height=64, tri_capacity=512, shading="pbr",
-                         use_pallas=True, pallas_interpret=True)
+                         use_pallas=True)
 
     def run(rt):
         r = Renderer(scene, cfg)
@@ -340,13 +340,13 @@ def test_shadow_lod_picked_by_light_distance():
     LOD (ref shadow_mapping.rs:462 picks caster LOD by light distance)."""
     import jax
 
-    from renderer_tpu.ops import geometry
-    from renderer_tpu.ops.shadow import (
+    from renderer_jax.ops import geometry
+    from renderer_jax.ops.shadow import (
         light_matrices_cube,
         lod_by_distance,
         render_shadow_atlas_per_light,
     )
-    from renderer_tpu.scene.builder import HostMesh
+    from renderer_jax.scene.builder import HostMesh
 
     box_m = primitives.box()
     # LOD1 = a single triangle of the box: dramatic simplification
@@ -410,7 +410,7 @@ def test_rt_grid_point_light():
     b.add_light(position=(1.5, 4.0, 0.0), intensity=40.0, shadow_slot=0)
     scene = b.build()
     cfg = PipelineConfig(width=128, height=64, tri_capacity=512, shading="pbr",
-                         rt_scale=1, use_pallas=True, pallas_interpret=True,
+                         rt_scale=1, use_pallas=True,
                          shadow_size=256)
 
     def run(**switches):
@@ -456,7 +456,7 @@ def test_rt_production_tier_scale():
     def run(scale, rt=True):
         cfg = PipelineConfig(
             width=128, height=64, tri_capacity=512, shading="pbr",
-            use_pallas=True, pallas_interpret=True, rt_scale=scale,
+            use_pallas=True, rt_scale=scale,
         )
         r = Renderer(scene, cfg, outputs=("image",))
         r.set_config(rt=rt)

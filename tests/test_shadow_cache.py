@@ -1,7 +1,7 @@
 """Amortized shadow atlas: signature dirty-tracking + budgeted round-robin.
 
 The reference re-renders its whole 16x4096^2 atlas every frame
-(shadow_mapping.rs:345-491); the TPU design makes the atlas persistent
+(shadow_mapping.rs:345-491); this design makes the atlas persistent
 frame state and re-renders only slots whose light/caster signature changed,
 at most `shadow_update_budget` per frame (ops/shadow.py
 render_shadow_atlas_cached)."""
@@ -12,12 +12,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from renderer_tpu import mathx
-from renderer_tpu.mathx.camera import Camera
-from renderer_tpu.ops.shadow import select_shadow_updates
-from renderer_tpu.passes.pipeline import PipelineConfig
-from renderer_tpu.runtime import Renderer
-from renderer_tpu.scene import SceneBuilder, SceneLimits, primitives
+from renderer_jax import mathx
+from renderer_jax.mathx.camera import Camera
+from renderer_jax.ops.shadow import select_shadow_updates
+from renderer_jax.passes.pipeline import PipelineConfig
+from renderer_jax.runtime import Renderer
+from renderer_jax.scene import SceneBuilder, SceneLimits, primitives
 
 
 def two_light_scene():
@@ -186,8 +186,8 @@ def test_budget_staggers_slot_updates():
 # -- round 5: multi-component signatures + progressive band units ------------
 
 def test_select_updates_multicomponent_sig():
-    # (n, C) signatures: dirty = ANY component changed (ADVICE r4: a
-    # single scalar's threshold scales with the whole-scene fold)
+    # (n, C) signatures: dirty = ANY component changed (a single
+    # scalar's threshold scales with the whole-scene fold)
     sig = jnp.array([[1.0, 5.0], [2.0, 6.0], [3.0, 7.0]])
     prev = jnp.array([[1.0, 5.0], [2.0, 9.0], [jnp.nan, jnp.nan]])
     sel, new_sig, cur = select_shadow_updates(sig, prev, jnp.int32(0), 0)
@@ -198,11 +198,11 @@ def test_select_updates_multicomponent_sig():
 def test_band_matrix_tiles_the_full_render():
     """K band renders through band_matrix, stacked, equal the full render
     (same pixel centers; only triangle-setup rounding differs)."""
-    from renderer_tpu.ops.raster_jax import rasterize
-    from renderer_tpu.ops.shadow import band_matrix, light_matrices_cube
+    from renderer_jax.ops.raster_jax import rasterize
+    from renderer_jax.ops.shadow import band_matrix, light_matrices_cube
 
     scene = two_light_scene()
-    from renderer_tpu.ops.geometry import (
+    from renderer_jax.ops.geometry import (
         coarse_cull, expand_clip_only, prepare_frame_columns,
     )
 
@@ -212,7 +212,7 @@ def test_band_matrix_tiles_the_full_render():
     mats = light_matrices_cube(scene.lights, smin, smax)
     m = mats[0, 0]
     S, K = 64, 4
-    from renderer_tpu.ops.geometry import mats44
+    from renderer_jax.ops.geometry import mats44
 
     model44 = mats44(model)
     lod = jnp.zeros((model44.shape[0],), jnp.int32)
@@ -266,7 +266,7 @@ def test_progressive_converges_to_whole_slot_render():
 
 
 def test_progressive_moved_caster_dirties_only_overlapping_bands():
-    """The VERDICT r4 item-2 contract: an instance moving outside a band
+    """The progressive-band contract: an instance moving outside a band
     unit's frustum leaves that unit's signature (and atlas rows) alone."""
     scene = two_light_scene()
     K = 4
@@ -282,8 +282,8 @@ def test_progressive_moved_caster_dirties_only_overlapping_bands():
             translation=inst.translation.at[1].set(jnp.array([0.05, 0.8, 0.0]))
         )
     )
-    from renderer_tpu.ops.geometry import prepare_frame_columns
-    from renderer_tpu.ops.shadow import light_matrices_cube, shadow_signature
+    from renderer_jax.ops.geometry import prepare_frame_columns
+    from renderer_jax.ops.shadow import light_matrices_cube, shadow_signature
 
     prepared = prepare_frame_columns(moved, cam())
     mats = light_matrices_cube(moved.lights, prepared[5], prepared[6])

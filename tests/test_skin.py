@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from renderer_tpu.models.scenes import make_skinned_arm, skinned_scene
-from renderer_tpu.ops.skin import pose_scene, sample_clips
+from renderer_jax.models.scenes import make_skinned_arm, skinned_scene
+from renderer_jax.ops.skin import pose_scene, sample_clips
 
 
 def test_rest_pose_is_identity():
@@ -66,9 +66,9 @@ def test_clip_looping_and_interpolation():
 
 
 def test_skinned_render_end_to_end():
-    from renderer_tpu.mathx.camera import Camera
-    from renderer_tpu.passes.pipeline import PipelineConfig
-    from renderer_tpu.runtime import Renderer
+    from renderer_jax.mathx.camera import Camera
+    from renderer_jax.passes.pipeline import PipelineConfig
+    from renderer_jax.runtime import Renderer
 
     scene = skinned_scene()
     cfg = PipelineConfig(width=64, height=64, tri_capacity=1024, skinning=True)
@@ -86,8 +86,8 @@ def test_skinned_render_end_to_end():
 
 
 def _one_joint_skin_builder():
-    from renderer_tpu.scene import SceneBuilder, SceneLimits
-    from renderer_tpu.scene.builder import HostMesh
+    from renderer_jax.scene import SceneBuilder, SceneLimits
+    from renderer_jax.scene.builder import HostMesh
 
     b = SceneBuilder(SceneLimits.tiny())
     mesh = HostMesh(
@@ -115,7 +115,7 @@ def _one_joint_skin_builder():
 def test_cubicspline_clip_matches_numpy_hermite():
     """Device CUBICSPLINE sampling == numpy hermite (glTF formula) on a
     translation-animated joint with random tangents."""
-    from renderer_tpu.ops.skin import sample_clips, set_active_clip
+    from renderer_jax.ops.skin import sample_clips, set_active_clip
 
     rng = np.random.default_rng(3)
     b, mid = _one_joint_skin_builder()
@@ -153,7 +153,7 @@ def test_cubicspline_clip_matches_numpy_hermite():
 
 
 def test_step_interpolation_holds_previous_key():
-    from renderer_tpu.ops.skin import sample_clips, set_active_clip
+    from renderer_jax.ops.skin import sample_clips, set_active_clip
 
     b, mid = _one_joint_skin_builder()
     times = np.array([0.0, 0.5, 1.0], np.float32)
@@ -167,7 +167,7 @@ def test_step_interpolation_holds_previous_key():
 
 def test_multi_clip_runtime_selection():
     """active_clip switches which animation a skin plays (multi-clip)."""
-    from renderer_tpu.ops.skin import pose_scene, set_active_clip
+    from renderer_jax.ops.skin import pose_scene, set_active_clip
 
     b, mid = _one_joint_skin_builder()
     times = np.array([0.0, 1.0], np.float32)

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from renderer_tpu.ops.texture import sample_atlas, srgb_to_linear
-from renderer_tpu.scene.textures import TextureAtlasBuilder, build_mips
+from renderer_jax.ops.texture import sample_atlas, srgb_to_linear
+from renderer_jax.scene.textures import TextureAtlasBuilder, build_mips
 
 
 def test_mip_chain():
@@ -91,7 +91,7 @@ def test_missing_texture_is_white():
 
 
 def test_srgb_roundtrip():
-    from renderer_tpu.utils.image import srgb_encode
+    from renderer_jax.utils.image import srgb_encode
 
     x = np.linspace(0, 1, 64, dtype=np.float32)
     np.testing.assert_allclose(
@@ -103,7 +103,7 @@ def test_quad_table_matches_tap_path():
     """The one-gather quad-table sampler must be bit-exact with the per-tap
     reference path for both filter modes, across layers/uv/lod, including
     the null (-1) layer."""
-    from renderer_tpu.ops.texture import sample_atlas_cf
+    from renderer_jax.ops.texture import sample_atlas_cf
 
     rng = np.random.default_rng(7)
     b = TextureAtlasBuilder(size=16)
@@ -133,9 +133,9 @@ def test_streamed_texture_quad_rows_refresh():
     one-gather sampler sees the new texels (not the placeholder)."""
     import time
 
-    from renderer_tpu.ops.texture import sample_atlas_cf
-    from renderer_tpu.runtime.streaming import SceneStreamer
-    from renderer_tpu.scene import SceneBuilder, SceneLimits, primitives
+    from renderer_jax.ops.texture import sample_atlas_cf
+    from renderer_jax.runtime.streaming import SceneStreamer
+    from renderer_jax.scene import SceneBuilder, SceneLimits, primitives
 
     b = SceneBuilder(SceneLimits.tiny(), atlas_size=8)
     pl = b.add_mesh(primitives.plane())
@@ -168,8 +168,8 @@ def test_quad_table_packing():
     """QUAD_PACK texels share each physical 128-lane row: 4x less quad-table
     memory (the BC7-tier analogue, scene_loader.rs:318-376) and the lane
     select is bit-exact with the unpacked layout."""
-    from renderer_tpu.ops.texture import _gather_quad_row
-    from renderer_tpu.scene.textures import QUAD_COLS, QUAD_PACK
+    from renderer_jax.ops.texture import _gather_quad_row
+    from renderer_jax.scene.textures import QUAD_COLS, QUAD_PACK
 
     b = TextureAtlasBuilder(size=16)
     rng = np.random.default_rng(7)
